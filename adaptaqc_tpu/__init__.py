@@ -1,4 +1,4 @@
-"""adaptaqc_tpu: TPU-native ADAPT-AQC (Adaptive Approximate Quantum Compiling).
+"""adaptaqc_tpu: ADAPT-AQC in JAX (Adaptive Approximate Quantum Compiling).
 
 A from-scratch JAX/XLA re-design of qiskit-community/adapt-aqc: compile a
 target quantum state (circuit or MPS) into a shallow two-qubit-gate circuit by

@@ -5,7 +5,7 @@ Reference parity: the reference ships an experimental alternative MPS
 backend over ITensorNetworks.jl (/root/reference/adaptaqc/backends/
 itensor_backend.py:17-62 + the Julia package it shells out to). Its value
 is an INDEPENDENT tensor-network engine for cross-checking the primary
-simulator. This module is that analogue, TPU-native: a from-scratch
+simulator. This module is that analogue, in JAX: a from-scratch
 mixed-canonical MPS engine in the ITensor idiom — site tensors with an
 explicit orthogonality center, gates applied by moving the center to the
 bond and truncating with a `cutoff` — sharing no state layout, gauge

@@ -1,9 +1,8 @@
 """Statevector engine: pure JAX functions over a split-complex (2**n,) state.
 
-TPU-native replacement for the Aer statevector simulator used by the
+Accelerator-native replacement for the Aer statevector simulator used by the
 reference's AerSVBackend (/root/reference/adaptaqc/backends/aer_sv_backend.py).
-The state is a cplx.C pair of real arrays (the TPU backend implements no
-complex dtype; real pairs also map directly onto the VPU). Gate application
+The state is a cplx.C pair of real arrays (ops/cplx.py). Gate application
 works with *traced* qubit indices (gather-based), so a single `lax.scan` over
 a tape executes any circuit without recompilation and the state lives on
 device for the whole compile.

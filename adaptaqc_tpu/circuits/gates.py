@@ -119,9 +119,7 @@ FIXED_U4_TABLE = _fixed_u4_table()
 
 
 # --------------------------------------------------------------- device (jnp)
-# All device math is split-complex (re/im real pairs, ops/cplx.py): the TPU
-# backend has no complex dtype support, and real pairs map cleanly onto the
-# VPU/MXU anyway.
+# All device math is split-complex (re/im real pairs, ops/cplx.py).
 
 def rotation_u2_c(kind, angle, dtype):
     """2x2 rotation matrix as cplx.C; kind one of RX/RY/RZ (traced)."""

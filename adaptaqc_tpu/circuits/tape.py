@@ -1,6 +1,6 @@
 """Compile a circuit range into flat device arrays (a "tape").
 
-The TPU-first inversion of the reference design: instead of mutating a gate
+The accelerator-first inversion of the reference design: instead of mutating a gate
 object list and re-simulating it from scratch per cost query
 (/root/reference/adaptaqc/compilers/approximate_compiler.py:514-527), gates
 become data — int/float arrays — and a single compiled XLA program (a

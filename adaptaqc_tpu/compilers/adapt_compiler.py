@@ -8,7 +8,7 @@ Rotoselect/Rotosolve, periodically re-optimise a trailing window, absorb
 frozen layers into the cached MPS prefix, and stop on the reference's
 termination criteria.
 
-TPU differences (behaviour-preserving):
+Device-side differences (behaviour-preserving):
  - pair scoring is batched on device (all 2-site RDMs / all pair gradients in
    one call) instead of a Python loop per pair;
  - Rotosolve/Rotoselect run as O(G) on-device sweeps (optim/sweeps.py);
@@ -189,13 +189,13 @@ class AdaptCompiler(ApproximateCompiler):
         The reference's Aer engine defaults ``max_chi`` to None — unbounded
         (aer_mps_backend.py:27-42 passes
         matrix_product_state_max_bond_dimension=max_chi, default None), so
-        its in-loop cost is exact out of the box; static TPU shapes force a
+        its in-loop cost is exact out of the box; static device shapes force a
         chi cap, and a binding cap
         makes the cost surrogate inexact mid-trajectory (the partially-built
         ansatz entangles above it — measured as an n-proportional plateau on
-        the 50q fig5 workload, docs/tpu_design_notes.md "plateau anatomy").
+        the 50q fig5 workload, docs/design_notes.md "plateau anatomy").
 
-        This is the TPU-native answer: compile at ``chis[0]``, and while the
+        The static-shape answer: compile at ``chis[0]``, and while the
         verified sufficient-cost stop has not fired, re-compile warm-started
         from the previous stage's solution at each higher chi. Cheap stages
         do the bulk of the layer construction at small-chi sweep cost; the
@@ -296,28 +296,27 @@ class AdaptCompiler(ApproximateCompiler):
         n = qc.num_qubits
         chi = int(min(chi, 2 ** ((n + 1) // 2)))
         thr = self.backend.truncation_threshold
-        with cplx.verification_eigh():
-            if mps_core.check_mps(self.target):
-                if isinstance(self.target, mps_core.MPS):
-                    target = (mps_core.pad_chi(self.target, chi)
-                              if chi > self.target.chi else self.target)
-                else:
-                    target = mps_core.from_qiskit_mps(self.target, chi)
+        if mps_core.check_mps(self.target):
+            if isinstance(self.target, mps_core.MPS):
+                target = (mps_core.pad_chi(self.target, chi)
+                          if chi > self.target.chi else self.target)
             else:
-                tt = compile_tape(co.make_quantum_only_circuit(self.target))
-                target = mps_core.apply_tape(
-                    mps_core.zero_mps(n, chi), jnp.asarray(tt.kinds),
-                    jnp.asarray(tt.q0), jnp.asarray(tt.q1),
-                    jnp.asarray(tt.angles), thr)
-            st = compile_tape(co.make_quantum_only_circuit(qc))
-            state = mps_core.apply_tape(
-                mps_core.zero_mps(n, chi), jnp.asarray(st.kinds),
-                jnp.asarray(st.q0), jnp.asarray(st.q1),
-                jnp.asarray(st.angles), thr)
-            nrm2 = float(mps_core.mps_dot(state, state).re)
-            tnrm2 = float(mps_core.mps_dot(target, target).re)
-            return float(mps_core.mps_dot(target, state).abs2()
-                         / max(nrm2 * tnrm2, 1e-30))
+                target = mps_core.from_qiskit_mps(self.target, chi)
+        else:
+            tt = compile_tape(co.make_quantum_only_circuit(self.target))
+            target = mps_core.apply_tape(
+                mps_core.zero_mps(n, chi), jnp.asarray(tt.kinds),
+                jnp.asarray(tt.q0), jnp.asarray(tt.q1),
+                jnp.asarray(tt.angles), thr)
+        st = compile_tape(co.make_quantum_only_circuit(qc))
+        state = mps_core.apply_tape(
+            mps_core.zero_mps(n, chi), jnp.asarray(st.kinds),
+            jnp.asarray(st.q0), jnp.asarray(st.q1),
+            jnp.asarray(st.angles), thr)
+        nrm2 = float(mps_core.mps_dot(state, state).re)
+        tnrm2 = float(mps_core.mps_dot(target, target).re)
+        return float(mps_core.mps_dot(target, state).abs2()
+                     / max(nrm2 * tnrm2, 1e-30))
 
     # ------------------------------------------------------------ layer gate
     def construct_layer_2q_gate(self, custom_layer_2q_gate) -> Circuit:
@@ -886,32 +885,31 @@ class AdaptCompiler(ApproximateCompiler):
         n = qc.num_qubits
         chi = self.backend.chi_for(n)
         verify_chi = min(2 * chi, 2 ** ((n + 1) // 2))
-        with cplx.verification_eigh():
-            payload = qc.data[0].payload
-            if qc.data[0].name == "set_statevector":
-                target = mps_core.from_dense(payload, verify_chi)
-            elif isinstance(payload, mps_core.MPS):
-                target = mps_core.pad_chi(payload, verify_chi)
-            else:
-                target = mps_core.from_qiskit_mps(payload, verify_chi)
-            rng = (1, len(qc.data))
-            state = mps_core.zero_mps(n, verify_chi)
-            if rng[1] > rng[0]:
-                tape = compile_tape(qc, rng)
-                state = mps_core.apply_tape_adjoint(
-                    state, jnp.asarray(tape.kinds), jnp.asarray(tape.q0),
-                    jnp.asarray(tape.q1), jnp.asarray(tape.angles),
-                    self.backend.truncation_threshold)
-            # normalise by BOTH norms: at verify_chi >> the state's true
-            # rank, f32 apply chains drift in SCALE (direction intact) —
-            # without this the chi-doubled verification can read overlap > 1
-            # or reject a converged state (seed-56 chi=64 run read 0.39 vs
-            # true 0.99). The embedded target is normalised on import but
-            # f32 conversion can leave <t|t> a few ulp off 1.
-            nrm2 = float(mps_core.mps_dot(state, state).re)
-            tnrm2 = float(mps_core.mps_dot(target, target).re)
-            denom = max(nrm2 * tnrm2, 1e-30)
-            return float(1.0 - mps_core.mps_dot(state, target).abs2() / denom)
+        payload = qc.data[0].payload
+        if qc.data[0].name == "set_statevector":
+            target = mps_core.from_dense(payload, verify_chi)
+        elif isinstance(payload, mps_core.MPS):
+            target = mps_core.pad_chi(payload, verify_chi)
+        else:
+            target = mps_core.from_qiskit_mps(payload, verify_chi)
+        rng = (1, len(qc.data))
+        state = mps_core.zero_mps(n, verify_chi)
+        if rng[1] > rng[0]:
+            tape = compile_tape(qc, rng)
+            state = mps_core.apply_tape_adjoint(
+                state, jnp.asarray(tape.kinds), jnp.asarray(tape.q0),
+                jnp.asarray(tape.q1), jnp.asarray(tape.angles),
+                self.backend.truncation_threshold)
+        # normalise by BOTH norms: at verify_chi >> the state's true
+        # rank, f32 apply chains drift in SCALE (direction intact) —
+        # without this the chi-doubled verification can read overlap > 1
+        # or reject a converged state (seed-56 chi=64 run read 0.39 vs
+        # true 0.99). The embedded target is normalised on import but
+        # f32 conversion can leave <t|t> a few ulp off 1.
+        nrm2 = float(mps_core.mps_dot(state, state).re)
+        tnrm2 = float(mps_core.mps_dot(target, target).re)
+        denom = max(nrm2 * tnrm2, 1e-30)
+        return float(1.0 - mps_core.mps_dot(state, target).abs2() / denom)
 
     def _stash_advance_hint(self, insert_at):
         """Hand the optimiser the engine state of full_circuit.data[:insert_at]

@@ -7,7 +7,7 @@ The "full circuit" identity is the same as the reference's
 here) -> [initial_state^-1] -> [starting_circuit^-1]; the cost is the
 probability of returning to |0...0>.
 
-TPU inversion: the target prefix is simulated ONCE into an on-device engine
+Device-side inversion: the target prefix is simulated ONCE into an on-device engine
 state (statevector or MPS) and cached; every cost query just applies the
 variational tape to it (cf. the reference re-simulating the whole circuit in
 Aer per query, :514-527 -> aer_sv_backend.py:37-47).
@@ -436,7 +436,7 @@ def calculate_overlap_between_circuits(circuit1: Circuit, circuit2: Circuit,
     """|<psi1|psi2>|^2 (full_circuit.py:413-438) — dense statevector
     simulation up to DENSE_OVERLAP_MAX_QUBITS, MPS contraction at bond cap
     `mps_chi` beyond (norm-normalised: chi >> true-rank f32 chains drift in
-    scale, see docs/tpu_design_notes.md)."""
+    scale, see docs/design_notes.md)."""
     initial_state_circuit = co.initial_state_to_circuit(initial_state)
     if initial_state_circuit is None:
         total = circuit1.num_qubits

@@ -1,11 +1,12 @@
-"""Global numeric configuration for the TPU build.
+"""Global numeric configuration.
 
 The reference (qiskit-community/adapt-aqc) runs float64/complex128 throughout
-because Aer is a CPU C++ simulator. On TPU, complex128 is emulated and slow;
-complex64 comfortably meets the default cost tolerance (sufficient_cost=1e-2,
-/root/reference/adaptaqc/utils/constants.py:31).  We therefore derive the
-working dtypes from JAX's x64 flag: tests running on CPU may enable x64 for
-high-precision oracle checks, while TPU runs default to complex64.
+because Aer is a CPU C++ simulator. On an accelerator, 64-bit arithmetic is
+slow; complex64 comfortably meets the default cost tolerance
+(sufficient_cost=1e-2, /root/reference/adaptaqc/utils/constants.py:31). We
+therefore derive the working dtypes from JAX's x64 flag: tests running on CPU
+may enable x64 for high-precision oracle checks, while device runs default to
+complex64.
 """
 
 import os
@@ -15,18 +16,14 @@ import jax.numpy as jnp
 
 # Persistent compilation cache: the engine programs are large (nested scans
 # with SVDs) and can take minutes to compile cold; cache them across
-# processes. Opt out with ADAPTAQC_TPU_NO_COMPILE_CACHE=1.
-if (not os.environ.get("ADAPTAQC_TPU_NO_COMPILE_CACHE")
-        and jax.config.jax_compilation_cache_dir is None):
-    _cache_dir = os.environ.get(
-        "ADAPTAQC_TPU_COMPILE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "adaptaqc_tpu_jax"))
-    try:
-        os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # read-only filesystem etc.
-        pass
+# processes. JAX itself honours JAX_COMPILATION_CACHE_DIR; without it the
+# cache sits at one fixed path inside the checkout (the path is part of the
+# cache key, so it must not move between runs).
+CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".jax_cache")
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def real_dtype():

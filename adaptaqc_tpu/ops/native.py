@@ -1,15 +1,18 @@
 """ctypes bindings for the native circuit-runtime kernels (native/circkit.cpp).
 
-Loads (building on first use if needed) libcirckit.so and exposes the
-peephole simplifier and depth kernels over flat gate arrays. Falls back
-cleanly when the toolchain or library is unavailable, or when a circuit
-contains constructs outside the flat-gate ABI (parameterised labels,
-measures, state-injection instructions).
+Builds libcirckit from the committed source on first use and exposes the
+peephole simplifier and depth kernels over flat gate arrays. The library's
+file name carries a hash of the source, so a library built from other
+sources (or copied in from elsewhere) is never loaded. Falls back cleanly
+when the toolchain or library is unavailable (or ADAPTAQC_NO_NATIVE is set),
+or when a circuit contains constructs outside the flat-gate ABI
+(parameterised labels, measures, state-injection instructions).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
 import subprocess
@@ -25,7 +28,25 @@ logger = logging.getLogger(__name__)
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+
+
+def library_path() -> str:
+    """Where the library built from the current circkit.cpp lives."""
+    with open(os.path.join(_NATIVE_DIR, "circkit.cpp"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_NATIVE_DIR, "build", f"libcirckit-{digest}.so")
+
+
+def _build(path: str) -> None:
+    """make into a private temp name, then rename: concurrent first uses
+    (test workers) never load a half-written library."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    subprocess.run(["make", "-C", _NATIVE_DIR, f"OUT={tmp}"],
+                   check=True, capture_output=True, timeout=120)
+    os.replace(tmp, path)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -33,16 +54,16 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    if os.environ.get("ADAPTAQC_TPU_NO_NATIVE"):
+    if os.environ.get("ADAPTAQC_NO_NATIVE"):
         return None
-    path = os.path.abspath(os.path.join(_NATIVE_DIR, "libcirckit.so"))
-    if not os.path.exists(path):
-        try:
-            subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                           check=True, capture_output=True, timeout=120)
-        except Exception as e:  # no toolchain / read-only install
-            logger.debug(f"native circkit build unavailable: {e}")
-            return None
+    try:
+        path = library_path()
+        if not os.path.exists(path):
+            _build(path)
+    except (OSError, subprocess.SubprocessError) as e:
+        # no source, no toolchain or a read-only install
+        logger.debug(f"native circkit build unavailable: {e}")
+        return None
     try:
         lib = ctypes.CDLL(path)
         lib.ck_peephole.restype = ctypes.c_int

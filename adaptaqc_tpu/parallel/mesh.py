@@ -2,16 +2,16 @@
 
 The reference has no distributed runtime (SURVEY.md section 2.7): its only
 parallelism is Aer's intra-simulator OpenMP threading plus fanning whole
-compilations across processes. The TPU-native equivalents here:
+compilations across processes. The device-native equivalents here:
 
  - dp axis — candidate-pair scoring (the per-layer heuristic sweep over the
    coupling map, O(n^2) pairs for CMAP_FULL) shards the pairs axis across
    devices; each device scores its pairs against a replicated state.
  - tp axis — the simulation state itself shards across devices: the 2^n
    statevector amplitude axis, or the MPS bond (chi) axis, letting
-   compilations exceed single-chip HBM. Gate application under jit is
+   compilations exceed one card's memory. Gate application under jit is
    partitioned by GSPMD: contractions over sharded axes lower to
-   collectives over ICI.
+   collectives between the cards.
 
 Both axes compose in one `jax.sharding.Mesh`. Integration into the real
 compiler goes through the backends: construct `SVBackend(mesh=...)` or
@@ -101,12 +101,11 @@ def make_mps_training_step(mesh: Mesh, n: int, chi: int, padded_len: int,
     and Gram eigh partitions over the tp axis under GSPMD) followed by the
     all-pair 2-site RDM scoring pass on the swept state — the per-layer
     work the MPS compiler performs at 50q. The sharded path uses the
-    GSPMD-partitionable XLA scan engine (Pallas kernels and the incremental
-    env cache are single-device programs, backend.MPSBackend.sweep_engine).
+    GSPMD-partitionable XLA scan engine (the incremental env cache is a
+    single-device program, backend.MPSBackend.sweep_engine).
     """
     from ..backends import mps_core
-    engine = mps_core.sweep_engine(threshold, allow_pallas=False,
-                                   allow_env_cache=False)
+    engine = mps_core.sweep_engine(threshold, allow_env_cache=False)
     bl = sweeps.default_block_len(
         padded_len, sweeps.state_nbytes(mps_core.zero_mps(n, chi)))
     repl = NamedSharding(mesh, P())

@@ -6,7 +6,7 @@ pair (c, t) by the Euclidean norm of dC/dtheta at theta=0:
 
     g_k = -Im(<s|G_k|psi><psi|U^dag(0)|s>),   g = sqrt(sum_k deg_k g_k^2)
 
-TPU inversion: the reference builds one circuit per (pair, generator) and
+Device-side inversion: the reference builds one circuit per (pair, generator) and
 re-simulates it in Aer (gradients.py:81-122). Here each generator and
 U^dag(0) is a fixed 4x4 operator, operator-Schmidt decomposed host-side into
 <=4 Kronecker terms, and ALL (pair, generator, term) overlap chains run as

@@ -35,30 +35,19 @@ def cross_engine_overlap(target, circuit, chi: int = 64,
     """|<target|circuit|0>|^2, both sides re-simulated in the center-gauge
     engine at bond dimension ``chi``, normalised by both norms (every
     deliverable-side overlap divides by the state norms — f32 chains drift
-    in scale, docs/tpu_design_notes.md).
+    in scale, docs/design_notes.md).
 
     ``target`` may be a gate circuit, an engine MPS (``mps_core.MPS``), or a
     qiskit-format MPS tuple; ``circuit`` is the solution gate circuit.
     """
-    from ..ops import cplx
-    # Pin the verifier to the `embed` eigh: the teig/pallas kernels are the
-    # MAIN engine's production path, and on deep n=50 chains the TPU
-    # center-gauge re-simulation under them collapsed to overlap 0.0 while
-    # the identical check on CPU (embed) reproduced the in-loop cost to
-    # 4 decimals (2026-08-21, circuits/spin_n50_s1_1787272212: in-loop
-    # 0.763, CPU cross-engine 0.7629, TPU cross-engine 0.0). Using a
-    # different eigh implementation than the engine under test also makes
-    # the check strictly more independent. One-off per record, so the
-    # set_eigh_impl jit-cache clears are affordable here.
-    with cplx.verification_eigh():
-        if isinstance(target, mps_core.MPS):
-            tgt = center_mps.from_bform(mps_core.regauge(target, chi))
-        elif mps_core.check_mps(target):
-            tgt = center_mps.from_bform(mps_core.from_qiskit_mps(target, chi))
-        else:
-            tgt = _simulate(target, chi, cutoff)
-        sol = _simulate(circuit, chi, cutoff)
-        nrm2 = float(center_mps.norm_sq(sol))
-        tnrm2 = float(center_mps.norm_sq(tgt))
-        return float(center_mps.cmps_dot(tgt, sol).abs2()
-                     / max(nrm2 * tnrm2, 1e-30))
+    if isinstance(target, mps_core.MPS):
+        tgt = center_mps.from_bform(mps_core.regauge(target, chi))
+    elif mps_core.check_mps(target):
+        tgt = center_mps.from_bform(mps_core.from_qiskit_mps(target, chi))
+    else:
+        tgt = _simulate(target, chi, cutoff)
+    sol = _simulate(circuit, chi, cutoff)
+    nrm2 = float(center_mps.norm_sq(sol))
+    tnrm2 = float(center_mps.norm_sq(tgt))
+    return float(center_mps.cmps_dot(tgt, sol).abs2()
+                 / max(nrm2 * tnrm2, 1e-30))

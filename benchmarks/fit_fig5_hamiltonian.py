@@ -15,7 +15,7 @@ So SM(t) depends only on the anisotropy delta in
 H = sum_i (X_i X_{i+1} + Y_i Y_{i+1} + delta Z_i Z_{i+1}) (+ any h field).
 This script simulates n=50 fine-step Trotter dynamics from Neel with the
 framework's MPS engine for a grid of delta and reports the RMS mismatch to
-the TDVP curve. Run on CPU or TPU.
+the TDVP curve.
 
 Usage: python benchmarks/fit_fig5_hamiltonian.py [t_max] [dt]
 Env: FIT_DELTAS="3.0,3.5,4.0" overrides the anisotropy grid.

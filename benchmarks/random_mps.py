@@ -62,31 +62,13 @@ def random_target(seed: int, n=50, chi=2):
     return mps_core.to_qiskit_mps(state)
 
 
-def compile_target(qmps, max_chi=None, sufficient_cost=None, max_layers=None,
-                   method="general_gradient", tag=None):
+def make_compiler(qmps, max_chi, sufficient_cost, max_layers,
+                  method="general_gradient", mesh=None):
+    """The paper's AdaptCompiler configuration for a qiskit-format MPS
+    target, on the MPS backend at working bond dimension ``max_chi``
+    (bond-sharded over ``mesh`` when one is given)."""
     import os
-    if sufficient_cost is None:
-        # default 9.5e-3, NOT the reference's 1e-2: a stop at exactly cost
-        # 1e-2 records an overlap that rounds to 0.9900 and fails a strict
-        # >0.99 tally (seeds 57/69/78/80/81 each cost a whole refinement
-        # pass to push past it); the 0.5e-3 margin is one or two extra
-        # layers at the stop point
-        sufficient_cost = float(os.environ.get("RMPS_SUFF", 9.5e-3))
-    if max_chi is None:
-        # chi=32 is the right operating point: the 4*chi real-embedded eigh
-        # inside every 2q apply costs 0.11 ms at chi=32 vs 1.6 ms at chi=64
-        # (native Eigh scales ~n^3.5), and the old chi=32 blocker — the
-        # absorbed-prefix cost reading optimistic near threshold — is gone
-        # now that sufficient-cost stops are verified against an exact
-        # re-simulation of the cleaned circuit. Every record also carries an
-        # independent chi=64 re-check of the final overlap (seed 17: working
-        # estimate 0.9904, chi=64 check 0.9914, 321 s vs 1048 s at chi=64).
-        max_chi = int(os.environ.get("RMPS_CHI", 32))
-    if max_layers is None:
-        # the paper's hardest targets run to ~1226 CZ = ~600 identity-
-        # resolvable layers; 800 leaves margin (RMPS_LAYERS to override)
-        max_layers = int(os.environ.get("RMPS_LAYERS", 800))
-    from adaptaqc_tpu import AdaptCompiler, AdaptConfig, mps_backend_with_args
+    from adaptaqc_tpu import AdaptCompiler, AdaptConfig, MPSBackend
     from adaptaqc_tpu.utils.ansatzes import identity_resolvable
     from adaptaqc_tpu.utils.constants import CMAP_LINEAR, generate_coupling_map
 
@@ -106,8 +88,8 @@ def compile_target(qmps, max_chi=None, sufficient_cost=None, max_layers=None,
         local_window_layers=int(os.environ.get("RMPS_LOCAL_WINDOW", 16)),
         global_polish_frequency=int(os.environ.get("RMPS_POLISH_FREQ", 10)),
     )
-    backend = mps_backend_with_args(mps_truncation_threshold=1e-8,
-                                    max_chi=max_chi)
+    backend = MPSBackend(truncation_threshold=1e-8, max_chi=max_chi,
+                         mesh=mesh)
     compiler = AdaptCompiler(
         qmps, backend=backend, adapt_config=config,
         coupling_map=generate_coupling_map(n, CMAP_LINEAR),
@@ -122,9 +104,33 @@ def compile_target(qmps, max_chi=None, sufficient_cost=None, max_layers=None,
         # result.overlap stays the global overlap either way
         optimise_local_cost=bool(int(os.environ.get("RMPS_LOCAL", "0"))),
     )
+    return compiler
+
+
+def compile_target(qmps, max_chi=None, sufficient_cost=None, max_layers=None,
+                   method="general_gradient", tag=None):
+    import os
+    if sufficient_cost is None:
+        # default 9.5e-3, NOT the reference's 1e-2: a stop at exactly cost
+        # 1e-2 records an overlap that rounds to 0.9900 and fails a strict
+        # >0.99 tally (seeds 57/69/78/80/81 each cost a whole refinement
+        # pass to push past it); the 0.5e-3 margin is one or two extra
+        # layers at the stop point
+        sufficient_cost = float(os.environ.get("RMPS_SUFF", 9.5e-3))
+    if max_chi is None:
+        # working bond dimension; sufficient-cost stops are verified against
+        # an exact re-simulation of the cleaned circuit, and every record
+        # carries an independent chi=64 re-check of the final overlap
+        max_chi = int(os.environ.get("RMPS_CHI", 32))
+    if max_layers is None:
+        # the paper's hardest targets run to ~1226 CZ = ~600 identity-
+        # resolvable layers; 800 leaves margin (RMPS_LAYERS to override)
+        max_layers = int(os.environ.get("RMPS_LAYERS", 800))
+    compiler = make_compiler(qmps, max_chi, sufficient_cost, max_layers,
+                             method)
     t0 = time.time()
     compiler, result = compile_with_recovery(
-        compiler, tag or f"rmps_n{n}_chi{max_chi}")
+        compiler, tag or f"rmps_n{len(qmps[0])}_chi{max_chi}")
     wall = time.time() - t0
     return result, wall
 
@@ -137,36 +143,24 @@ def independent_overlap(qmps, circuit, chi=64):
     from adaptaqc_tpu.backends import mps_core
     from adaptaqc_tpu.circuits.operations import make_quantum_only_circuit
     from adaptaqc_tpu.circuits.tape import compile_tape
-    from adaptaqc_tpu.ops import cplx
 
-    # verification runs on the embed eigh (cplx.verification_eigh): one-shot
-    # deep re-simulations under the teig/pallas sweep kernels collapsed to
-    # overlap ~0 on the TPU (2026-08-21) while embed agreed with CPU
-    with cplx.verification_eigh():
-        target = mps_core.from_qiskit_mps(qmps, chi)
-        tape = compile_tape(make_quantum_only_circuit(circuit))
-        state = mps_core.apply_tape(
-            mps_core.zero_mps(len(qmps[0]), chi), jnp.asarray(tape.kinds),
-            jnp.asarray(tape.q0), jnp.asarray(tape.q1),
-            jnp.asarray(tape.angles), 1e-16)
-        # normalised: chi >> true-rank f32 chains drift in scale (see
-        # adapt_compiler._true_cost_of_gate_circuit)
-        nrm2 = float(mps_core.mps_dot(state, state).re)
-        tnrm2 = float(mps_core.mps_dot(target, target).re)
-        return float(mps_core.mps_dot(target, state).abs2()
-                     / max(nrm2 * tnrm2, 1e-30))
+    target = mps_core.from_qiskit_mps(qmps, chi)
+    tape = compile_tape(make_quantum_only_circuit(circuit))
+    state = mps_core.apply_tape(
+        mps_core.zero_mps(len(qmps[0]), chi), jnp.asarray(tape.kinds),
+        jnp.asarray(tape.q0), jnp.asarray(tape.q1),
+        jnp.asarray(tape.angles), 1e-16)
+    # normalised: chi >> true-rank f32 chains drift in scale (see
+    # adapt_compiler._true_cost_of_gate_circuit)
+    nrm2 = float(mps_core.mps_dot(state, state).re)
+    tnrm2 = float(mps_core.mps_dot(target, target).re)
+    return float(mps_core.mps_dot(target, state).abs2()
+                 / max(nrm2 * tnrm2, 1e-30))
 
 
 def main():
     import json
     import os
-    if os.path.exists("/tmp/rmps_defer"):
-        # queue kill-switch: a higher-priority job chain (fig5) needs the
-        # TPU; the in-flight sprint's remaining per-seed invocations no-op
-        # (each seed is its own process, so this takes effect immediately)
-        # and a later job clears the flag and re-runs the same seed list
-        print("rmps_defer set: skipping (deferred to a later queue job)")
-        return
     seeds = [int(s) for s in sys.argv[1:]] or [1]
     results_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "results_random_mps.jsonl")

@@ -60,20 +60,14 @@ def staggered_magnetisation(circuit, chi=64):
     from adaptaqc_tpu.circuits.operations import make_quantum_only_circuit
     from adaptaqc_tpu.circuits.tape import compile_tape
 
-    from adaptaqc_tpu.ops import cplx
-
-    # one-shot deep re-simulation at record time: pin the embed eigh (the
-    # TPU teig path misread SM 0.4151 for a solution whose CPU SM is 0.4954
-    # — same collapse class cplx.verification_eigh documents)
     qc = make_quantum_only_circuit(circuit)
     tape = compile_tape(qc)
-    with cplx.verification_eigh():
-        state = mps_core.apply_tape(
-            mps_core.zero_mps(qc.num_qubits, chi), jnp.asarray(tape.kinds),
-            jnp.asarray(tape.q0), jnp.asarray(tape.q1),
-            jnp.asarray(tape.angles), 1e-16)
-        # z_expectations is per-site self-normalised (mps_core)
-        z = np.asarray(mps_core.z_expectations(state))
+    state = mps_core.apply_tape(
+        mps_core.zero_mps(qc.num_qubits, chi), jnp.asarray(tape.kinds),
+        jnp.asarray(tape.q0), jnp.asarray(tape.q1),
+        jnp.asarray(tape.angles), 1e-16)
+    # z_expectations is per-site self-normalised (mps_core)
+    z = np.asarray(mps_core.z_expectations(state))
     signs = (-1.0) ** np.arange(qc.num_qubits)
     return float(np.mean(signs * z))
 

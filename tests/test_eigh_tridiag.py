@@ -1,8 +1,8 @@
 """Tridiagonalization-based complex eigh (cplx.eigh_top_tridiag).
 
-The TPU fast path for bond truncation: complex Householder
-tridiagonalization -> native REAL eigh at size n (vs 2n for the real
-embedding) -> back-transform of the kept columns. These tests pin (a) f64
+The alternative bond-truncation path (ADAPTAQC_EIGH=tridiag): complex
+Householder tridiagonalization -> native REAL eigh at size n (vs 2n for the
+real embedding) -> back-transform of the kept columns. These tests pin (a) f64
 exactness against numpy, (b) f32 accuracy parity with the embed path on the
 degenerate spectra that broke naive extraction (CLAUDE.md caveat), and (c)
 end-to-end MPS-engine equivalence when the implementation is switched.
@@ -149,40 +149,6 @@ def test_svd_trunc_impl_equivalence_bell_ghz():
         cplx.EIGH_IMPL = old
 
 
-@pytest.mark.parametrize("case", ["rand", "spec7", "flat", "lowrank"])
-def test_pallas_eigh_matches_tridiag_interpret(case):
-    """The Pallas kernels (interpret mode on CPU) agree with the pure-JAX
-    tridiag path: same eigenvalues, orthonormal vectors, small residuals."""
-    from adaptaqc_tpu.ops import pallas_eigh
-
-    rng = np.random.default_rng(3)
-    n = 32
-    if case == "rand":
-        a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
-        h = a.conj().T @ a
-    elif case == "spec7":
-        a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
-        u, _, vh = np.linalg.svd(a)
-        th = (u * np.logspace(0, -7, n)) @ vh
-        h = th.conj().T @ th
-    elif case == "flat":
-        h = np.eye(n, dtype=complex)
-    else:
-        a = rng.standard_normal((n, 4)) + 1j * rng.standard_normal((n, 4))
-        h = a @ a.conj().T
-    hc = _as_c(h, jnp.float32)
-    keep = n // 2
-    w_p, v_p = pallas_eigh.eigh_top_pallas(hc, keep, interpret=True)
-    w_j, _ = cplx.eigh_top_tridiag(hc, keep)
-    w_p, w_j = np.asarray(w_p), np.asarray(w_j)
-    scale = max(1e-30, np.abs(w_j).max())
-    assert np.abs(w_p - w_j).max() / scale < 1e-5
-    V = np.asarray(v_p.re) + 1j * np.asarray(v_p.im)
-    assert np.abs(V @ V.conj().T - np.eye(keep)).max() < 1e-4
-    for i in range(4):
-        assert np.linalg.norm(h @ V[i] - w_p[i] * V[i]) / scale < 1e-4
-
-
 def test_mps_engine_equivalence_under_tridiag():
     """End-to-end MPS circuit simulation with the tridiag eigh matches the
     dense statevector, including on GHZ (exactly degenerate Schmidt values
@@ -212,127 +178,64 @@ def test_mps_engine_equivalence_under_tridiag():
         jax.clear_caches()
 
 
-@pytest.mark.parametrize("case", ["rand", "spec7", "flat", "lowrank",
-                                  "decoupled"])
-def test_teig_matches_numpy_interpret(case):
-    """The in-kernel tridiagonal eigensolver (Sturm bisection + pivoted
-    inverse iteration, interpret mode) agrees with numpy.linalg.eigh:
-    eigenvalues, orthonormality, residuals, and top-subspace recovery on
-    degenerate/decoupled Gram spectra (the svd_trunc input class)."""
-    from adaptaqc_tpu.ops import pallas_eigh
-
-    rng = np.random.default_rng(7)
-    n = 32
+def _spectral_case(case, rng, n=32):
     if case == "rand":
         a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
-        h = a.conj().T @ a
-    elif case == "spec7":
+        return a.conj().T @ a
+    if case == "spec7":
         a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
         u, _, vh = np.linalg.svd(a)
         th = (u * np.logspace(0, -7, n)) @ vh
-        h = th.conj().T @ th
-    elif case == "flat":
-        h = np.eye(n, dtype=complex)
-    elif case == "lowrank":
+        return th.conj().T @ th
+    if case == "flat":
+        return np.eye(n, dtype=complex)
+    if case == "lowrank":
         a = rng.standard_normal((n, 4)) + 1j * rng.standard_normal((n, 4))
-        h = a @ a.conj().T
-    else:  # decoupled: exact zero bond splits T into independent blocks
-        a = rng.standard_normal((n, n))
-        h = a.T @ a
-        h[: n // 2, n // 2:] = 0.0
-        h[n // 2:, : n // 2] = 0.0
-        h = h.astype(complex)
+        return a @ a.conj().T
+    # decoupled: exact zero bond splits T into independent blocks
+    a = rng.standard_normal((n, n))
+    h = a.T @ a
+    h[: n // 2, n // 2:] = 0.0
+    h[n // 2:, : n // 2] = 0.0
+    return h.astype(complex)
+
+
+@pytest.mark.parametrize("impl", ["embed", "tridiag"])
+@pytest.mark.parametrize("case", ["rand", "spec7", "flat", "lowrank",
+                                  "decoupled"])
+def test_eigh_top_matches_numpy(impl, case):
+    """Both device eigh paths agree with numpy.linalg.eigh in f32:
+    eigenvalues, orthonormality, residuals and top-subspace recovery on
+    degenerate/decoupled Gram spectra (the svd_trunc input class)."""
+    h = _spectral_case(case, np.random.default_rng(7))
+    n = h.shape[0]
     hc = _as_c(h, jnp.float32)
     keep = n // 2
-    w_p, v_p = pallas_eigh.eigh_top_pallas_teig(hc, keep, interpret=True)
+    fn = cplx.eigh_top if impl == "embed" else cplx.eigh_top_tridiag
+    w_p, v_p = fn(hc, keep)
     wx = np.linalg.eigh(np.asarray(hc.re) + 1j * np.asarray(hc.im))[0][::-1]
     w_p = np.asarray(w_p)
     scale = max(1e-30, np.abs(wx).max())
-    assert np.abs(w_p - wx[:keep]).max() / scale < 2e-5
+    # ~10 * (2n) * eps_f32: embed solves the 2n x 2n real embedding
+    assert np.abs(w_p - wx[:keep]).max() / scale < 1e-4
     V = np.asarray(v_p.re) + 1j * np.asarray(v_p.im)
     assert np.abs(V @ V.conj().T - np.eye(keep)).max() < 2e-4
     for i in range(4):
         assert np.linalg.norm(h @ V[i] - w_p[i] * V[i]) / scale < 2e-4
 
 
-def test_svd_trunc_teig_equivalence_bell_ghz():
-    """svd_trunc under the teig impl reproduces the embed impl's truncated
-    factorisation on the degenerate Bell theta and a random one (interpret
-    mode via the CPU conftest platform)."""
-    rng = np.random.default_rng(4)
-    thetas = []
-    th = np.zeros((8, 8), complex)
-    th[0, 0] = th[7, 7] = 1 / np.sqrt(2)
-    thetas.append(th)  # Bell-type: exactly degenerate kept pair
-    a = rng.standard_normal((16, 16)) + 1j * rng.standard_normal((16, 16))
-    thetas.append(a / np.linalg.norm(a))
-    from adaptaqc_tpu.ops import pallas_eigh
-
-    for th in thetas:
-        tc = cplx.C(jnp.asarray(th.real, jnp.float32),
-                    jnp.asarray(th.imag, jnp.float32))
-        n = th.shape[0]
-        keep = n // 2
-        h = tc.H @ tc
-        w_t, v_t = pallas_eigh.eigh_top_pallas_teig(h, keep, interpret=True)
-        w_e, _ = cplx.eigh_top(h, keep)
-        np.testing.assert_allclose(np.asarray(w_t), np.asarray(w_e),
-                                   atol=1e-5)
-        # kept-subspace reconstruction: theta P == theta for full-rank-kept
-        V = np.asarray(v_t.re) + 1j * np.asarray(v_t.im)
-        P = V.conj().T @ V
-        if np.linalg.matrix_rank(th) <= keep:
-            np.testing.assert_allclose(th @ P, th, atol=1e-5)
-
-
-def test_mps_engine_equivalence_under_teig(monkeypatch):
-    """End-to-end MPS simulation with the full teig path (tridiag kernel +
-    in-kernel tridiagonal eigensolver, interpret mode on CPU via
-    ADAPTAQC_PALLAS_INTERPRET) matches the dense statevector, including GHZ
-    (exactly degenerate Schmidt values at every bond)."""
-    from test_mps_core import run_mps
-    from test_sv_core import random_circuit, simulate
-    from adaptaqc_tpu.backends import mps_core
-    from adaptaqc_tpu.circuits.circuit import Circuit
-
-    ghz = Circuit(5)
-    ghz.h(0)
-    for i in range(4):
-        ghz.cx(i, i + 1)
-    rng = np.random.default_rng(13)
-    rand = random_circuit(5, 25, rng)
-
-    monkeypatch.setenv("ADAPTAQC_PALLAS_INTERPRET", "1")
-    old = cplx.EIGH_IMPL
-    try:
-        cplx.set_eigh_impl("teig")  # clears jit caches
-        for qc in (ghz, rand):
-            st = run_mps(qc, 8)
-            np.testing.assert_allclose(mps_core.to_dense(st), simulate(qc),
-                                       atol=1e-5)
-    finally:
-        monkeypatch.delenv("ADAPTAQC_PALLAS_INTERPRET")
-        cplx.set_eigh_impl(old)
-
-
-def test_verification_eigh_context_pins_embed_and_restores(monkeypatch):
-    """One-shot verification re-simulations must not share the sweep path's
-    eigh kernels (TPU teig/pallas deep-chain collapse, 2026-08-21): the
-    context pins `embed` and restores the caller's choice, including the
-    unset (environment-resolved) state. (Interpret env makes the pallas
-    path "live" on CPU so the flip is exercised.)"""
-    from adaptaqc_tpu.ops import cplx
-    monkeypatch.setenv("ADAPTAQC_PALLAS_INTERPRET", "1")
+def test_eigh_impl_rejects_unknown_name(monkeypatch):
+    """ADAPTAQC_EIGH names one of the two device paths; anything else (the
+    removed kernel names included) is an error, not a silent default."""
+    monkeypatch.setenv("ADAPTAQC_EIGH", "teig")
     prev = cplx.EIGH_IMPL
     try:
-        cplx.set_eigh_impl("teig")
-        with cplx.verification_eigh():
-            assert cplx._eigh_impl() == "embed"
-        assert cplx._eigh_impl() == "teig"
-        cplx.set_eigh_impl("")  # environment/default-resolved
-        resolved = cplx._eigh_impl()
-        with cplx.verification_eigh():
-            assert cplx._eigh_impl() == "embed"
-        assert cplx._eigh_impl() == resolved
+        cplx.EIGH_IMPL = ""
+        with pytest.raises(ValueError):
+            cplx._eigh_impl()
+        monkeypatch.delenv("ADAPTAQC_EIGH")
+        assert cplx._eigh_impl() == "embed"
+        with pytest.raises(ValueError):
+            cplx.set_eigh_impl("pallas")
     finally:
-        cplx.set_eigh_impl(prev or "")
+        cplx.EIGH_IMPL = prev

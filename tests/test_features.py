@@ -69,7 +69,7 @@ def test_compile_in_parts():
 def test_compile_with_chi_schedule_escalates_past_binding_cap():
     """Working-precision escalation: a chi=2 working cap is binding for an
     entangled 4q target (true chi up to 4), so stage 1 stalls; the chi=4
-    stage warm-starts from its solution and converges. The TPU-native
+    stage warm-starts from its solution and converges. The static-shape
     answer to Aer's unbounded bond dimension (aer_mps_backend.py:27-42)."""
     # two Bell pairs across the middle cut: chi=4 with four EQUAL Schmidt
     # values, so a chi=2 working cap pins the achievable fidelity at ~0.5

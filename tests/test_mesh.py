@@ -158,8 +158,7 @@ class TestMPSTrainingStep:
                         for s in l_state.b.re.addressable_shards}
         assert shard_shapes == {(n, 2, chi, chi // tp)}
 
-        engine = mps_core.sweep_engine(0.0, allow_pallas=False,
-                                       allow_env_cache=False)
+        engine = mps_core.sweep_engine(0.0, allow_env_cache=False)
         bl = sweeps.default_block_len(tape.padded_length)
         ref = mps_core.zero_mps(n, chi)
         t0 = time.time()
@@ -173,7 +172,7 @@ class TestMPSTrainingStep:
         t_single = time.time() - t0
         print(f"\nMPS step n={n} chi={chi}: sharded(tp={tp}) {t_sharded:.2f}s"
               f" vs single-device {t_single:.2f}s (virtual CPU devices - "
-              "wall time is not a TPU speedup claim)")
+              "wall time is not a device speedup claim)")
 
         assert float(cost) == pytest.approx(float(cost0), abs=1e-6)
         assert np.allclose(cplx.to_np(rhos), cplx.to_np(rhos0), atol=1e-6)
@@ -188,8 +187,7 @@ class TestMPSTrainingStep:
 
         n, chi = 6, 16
         tape = _random_tape(n, 4, seed=2)
-        engine = mps_core.sweep_engine(0.0, allow_pallas=False,
-                                       allow_env_cache=False)
+        engine = mps_core.sweep_engine(0.0, allow_env_cache=False)
         bl = sweeps.default_block_len(tape.padded_length)
 
         def fn(prefix, kinds, q0, q1, angles, select):
